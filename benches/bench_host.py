@@ -5,7 +5,7 @@ points of every batched build sequentially (exact reference semantics,
 nsw.rs:234-235); `--single-threaded` builds run entirely through it. This
 measures its insert rate on the local CPU at the CLI's default build
 parameters so optimizations to native/hnsw_host.cpp are verifiable without
-TPU access. Reference calibration: 16-core Ryzen builds 10.12M points in
+a GPU. Reference calibration: 16-core Ryzen builds 10.12M points in
 575s ≈ 56.8 µs/pt (README.md:160-184) — but its warmup phase is one core,
 like this measurement.
 """
@@ -27,7 +27,7 @@ def main():
                     help="full-hierarchy build (hnsw_host_build_hnsw)")
     args = ap.parse_args()
 
-    from hnsw_itu_tpu import native
+    from hnsw_itu import native
 
     assert native.available()
     rng = np.random.default_rng(5)

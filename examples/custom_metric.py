@@ -1,8 +1,8 @@
 """Custom user metric — the public extension point (register_metric).
 
 The reference's generic path accepts ANY user point type with an integer
-distance through the ``Point`` trait (/root/reference/src/index/mod.rs:45-47,
-demonstrated by Point3D, examples/main.rs:7-11). The TPU framework's
+distance through the ``Point`` trait (reference/src/index/mod.rs:45-47,
+demonstrated by Point3D, examples/main.rs:7-11). This framework's
 equivalent is a ``Metric`` subclass registered by name: implement
 ``one_to_many`` (the beam-search expansion kernel shape — one query vs C
 gathered points), optionally override ``pairwise``/``pairwise_mxu`` for
@@ -25,9 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 import numpy as np
 
-from hnsw_itu_tpu import Metric, register_metric
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+from hnsw_itu import Metric, register_metric
+from hnsw_itu.models import Bruteforce, IndexOptions
+from hnsw_itu.models.hnsw import HNSWBuilder
 
 
 class ManhattanInt(Metric):

@@ -1,6 +1,6 @@
 """Point3D example — the generic-distance path beyond Hamming.
 
-Parity target: /root/reference/examples/main.rs. A 10x10x10 integer grid
+Parity target: reference/examples/main.rs. A 10x10x10 integer grid
 with squared-Euclidean distance; the 10-NN of (2, 4, 16) at k=10, ef=20
 have distances 49,50,50,50,50,51,51,51,51,53 (README.md:62-74).
 
@@ -14,8 +14,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from hnsw_itu_tpu.models import IndexOptions
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+from hnsw_itu.models import IndexOptions
+from hnsw_itu.models.hnsw import HNSWBuilder
 
 
 def main():

@@ -1,14 +1,25 @@
-"""hnsw_itu_tpu — TPU-native HNSW / NSW / brute-force K-NN framework.
+"""Former import name of :mod:`hnsw_itu`, kept as an alias.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-``hnsw-itu`` Rust reference (HNSW over 1024-bit binary sketches, SISAP 2023
-LAION challenge): padded-array graphs in HBM, batched frontier-expansion
-beam search, bitmask visited sets, MXU brute-force scans, bulk-synchronous
-batched index construction, HDF5 ingest, index persistence and a CLI.
+Every module under this name is the ``hnsw_itu`` module of the same name
+(one copy, one set of classes), so existing imports keep working. The
+command line is left to the normal import system, which finds
+``hnsw_itu/cli.py`` under this name too, so ``python -m <this name>.cli``
+runs it. Importing the alias warns.
 """
 
-from . import ops
-from .graph import GraphArrays, make_graph
-from .ops.metrics import Metric, get_metric, register_metric
+import importlib
+import pkgutil
+import sys
+import warnings
 
-__version__ = "0.1.0"
+import hnsw_itu
+
+warnings.warn(f"{__name__} is now hnsw_itu; import hnsw_itu instead",
+              FutureWarning, stacklevel=2)
+
+for _info in pkgutil.walk_packages(hnsw_itu.__path__, "hnsw_itu."):
+    if _info.name == "hnsw_itu.cli":
+        continue
+    sys.modules[__name__ + _info.name[len("hnsw_itu"):]] = (
+        importlib.import_module(_info.name))
+sys.modules[__name__] = hnsw_itu

@@ -1,11 +1,11 @@
 // Native host runtime: exact-semantics sequential graph construction and
-// multithreaded batch search over the SAME padded adjacency arrays the TPU
-// kernels use.
+// multithreaded batch search over the SAME padded adjacency arrays the device
+// programs use.
 //
-// Role (mirrors the reference's Rust core, /root/reference/src/index/nsw.rs):
+// Role (mirrors the reference's Rust core, reference/src/index/nsw.rs):
 // the early phase of index construction is latency-bound pointer chasing —
 // the reference builds its first 50,000 points sequentially "to not generate
-// a truly horrible graph" (nsw.rs:234). That phase maps terribly onto a TPU
+// a truly horrible graph" (nsw.rs:234). That phase maps terribly onto a GPU
 // (one dependent search per insert) and perfectly onto a CPU, so this module
 // implements it natively:
 //

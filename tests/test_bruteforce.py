@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from hnsw_itu_tpu.models import Bruteforce
+from hnsw_itu.models import Bruteforce
 
 
 def test_exact_hamming_vs_numpy():

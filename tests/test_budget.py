@@ -1,63 +1,111 @@
 """Capacity-aware inline budgets + warmup buffer lifecycle.
 
-Round-3 OOM postmortem: the 2M build died because (a) `_host_warmup`
-re-materialized the 10.7GB inline buffer while the pre-warmup zeros
-buffer was still alive (2x transient), and (b) nothing capped the env
-budgets against what the chip can actually hold alongside the donated
-fixed set. Both fixes are pinned here.
+Budgets are read from the device's allocator limit
+(``memory_stats()["bytes_limit"]``, models/base.device_memory_limit); the
+tests patch that limit in. Also pinned: ``_host_warmup`` must free the
+pre-warmup buffers before uploading replacements (old + new at once
+doubles peak memory).
 """
 
+import jax
 import numpy as np
 import pytest
 
-import hnsw_itu_tpu.models.nsw as nswmod
-from hnsw_itu_tpu.models import IndexOptions, NSWBuilder
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+import hnsw_itu.models.nsw as nswmod
+from hnsw_itu.models import IndexOptions, NSWBuilder
+from hnsw_itu.models.hnsw import HNSWBuilder
+
+# what JAX reports on an 80 GB H100 at its default 75% memory fraction
+H100_LIMIT = 63_763_120_128
+
+
+class _Dev:
+    def __init__(self, limit):
+        self.limit = limit
+
+    def memory_stats(self):
+        return {"bytes_limit": self.limit, "bytes_in_use": 0}
+
+
+def _patch_limit(monkeypatch, limit):
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [_Dev(limit)])
 
 
 def test_inline_budget_env_only_on_cpu(monkeypatch):
-    # CPU/test backends keep the raw env knob (no HBM cap)
-    monkeypatch.setenv("HNSW_TPU_INLINE_QUERY_BYTES", "12345678")
-    assert nswmod._inline_budget("HNSW_TPU_INLINE_QUERY_BYTES", 10**9) \
+    # the CPU reports no allocator limit: the raw env knob stands, else
+    # its default
+    monkeypatch.delenv("HNSW_INLINE_QUERY_BYTES", raising=False)
+    assert nswmod._inline_budget("HNSW_INLINE_QUERY_BYTES", 10**9) \
+        == int(1.1e10)
+    monkeypatch.setenv("HNSW_INLINE_QUERY_BYTES", "12345678")
+    assert nswmod._inline_budget("HNSW_INLINE_QUERY_BYTES", 10**9) \
         == 12345678
 
 
 def test_inline_budget_capped_by_hbm(monkeypatch):
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setenv("HNSW_TPU_HBM_BYTES", str(int(15.75e9)))
-    # fixed set leaves 15.75 - 1.6 - 4.5 = 9.65e9 for the table
-    got = nswmod._inline_budget("HNSW_TPU_INLINE_BUILD_BYTES",
+    monkeypatch.delenv("HNSW_INLINE_BUILD_BYTES", raising=False)
+    _patch_limit(monkeypatch, int(10e9))
+    # fixed set leaves 10 - 1.6 - 4.5 = 3.9e9 for the table
+    got = nswmod._inline_budget("HNSW_INLINE_BUILD_BYTES",
                                 int(4.5e9))
-    assert got == int(15.75e9 - 1.6e9 - 4.5e9)
-    # small fixed set: the env default 1.1e10 is the binding constraint
-    assert nswmod._inline_budget("HNSW_TPU_INLINE_BUILD_BYTES",
-                                 int(0.84e9)) == int(1.1e10)
+    assert got == int(10e9 - 1.6e9 - 4.5e9)
+    # a large device: what the limit leaves, with no smaller default
+    _patch_limit(monkeypatch, H100_LIMIT)
+    assert nswmod._inline_budget("HNSW_INLINE_BUILD_BYTES",
+                                 int(4.5e9)) == int(H100_LIMIT - 1.6e9 - 4.5e9)
+    # the env knob is an override that only lowers the device budget
+    monkeypatch.setenv("HNSW_INLINE_BUILD_BYTES", "2e9")
+    assert nswmod._inline_budget("HNSW_INLINE_BUILD_BYTES",
+                                 int(4.5e9)) == int(2e9)
+    monkeypatch.setenv("HNSW_INLINE_BUILD_BYTES", "1e12")
+    assert nswmod._inline_budget("HNSW_INLINE_BUILD_BYTES",
+                                 int(4.5e9)) == int(H100_LIMIT - 1.6e9 - 4.5e9)
 
 
 def test_build_words_at_flagship_scales(monkeypatch):
-    """Truncated build widths must be LANE-ALIGNED on TPU backends
-    (W*mw % 128 == 0): unaligned flat widths pay a whole-table re-layout
-    copy per chunk dispatch (measured 11.3GB extra at 2M/mw=21 — the
-    round-3 preflight OOM; docs/SCALE.md layout audit). 2M lands mw=20
-    (640-bit steering), 10M mw=2 (64-bit + exact re-score)."""
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    """Build widths on an H100-sized device: full sketches up to 2^21
+    nodes (the kernel's reach) and beyond, the widest prefix under the
+    budget past that, and fixed set + table within the limit. 2M and 2^21
+    land the full 32 words, 10M mw=22 (704-bit steering + exact
+    re-score)."""
+    monkeypatch.delenv("HNSW_INLINE_BUILD_BYTES", raising=False)
+    _patch_limit(monkeypatch, H100_LIMIT)
 
     sample = np.zeros((1, 32), np.uint32)
-    for size, want_mw in ((2_000_000, 20), (10_000_000, 2)):
+    for size, want_mw in ((2_000_000, 32), (1 << 21, 32),
+                          (10_000_000, 22)):
         b = HNSWBuilder(
             IndexOptions(size=size, max_connections=64, connections=24),
             metric="hamming",
         )
         mw = NSWBuilder._inline_build_words(b, sample)
         assert mw == want_mw, (size, mw)
-        assert (mw * 64) % 128 == 0
         fixed = size * (32 * 4 + 64 * 4 + 4 + 32) + b._extra_fixed_bytes()
         table = mw * size * 64 * 4
-        assert fixed + table <= 15.75e9 - 1.6e9
+        assert fixed + table <= H100_LIMIT - 1.6e9
+    # a small device truncates harder, never past its limit
+    _patch_limit(monkeypatch, int(8e9))
+    b = HNSWBuilder(
+        IndexOptions(size=2_000_000, max_connections=64, connections=24),
+        metric="hamming",
+    )
+    mw = NSWBuilder._inline_build_words(b, sample)
+    fixed = 2_000_000 * (32 * 4 + 64 * 4 + 4 + 32) + b._extra_fixed_bytes()
+    assert 2 <= mw < 32
+    assert fixed + mw * 2_000_000 * 64 * 4 <= 8e9 - 1.6e9
+
+
+@pytest.mark.parametrize("size,fits", [(1_000_000, True), (1 << 21, True),
+                                       (10_120_000, False)])
+def test_query_table_fits_h100(monkeypatch, size, fits):
+    """Exact inline query rows on an H100-sized device: they fit up to the
+    kernel's 2^21 nodes (17.2 GB there); 10.12M needs 83 GB and is served
+    by the gather path."""
+    monkeypatch.delenv("HNSW_INLINE_QUERY_BYTES", raising=False)
+    _patch_limit(monkeypatch, H100_LIMIT)
+    pts = jax.ShapeDtypeStruct((size, 32), np.uint32)
+    adj = jax.ShapeDtypeStruct((size, 64), np.int32)
+    assert nswmod._inline_query_fits(pts, adj) is fits
 
 
 def test_level_capacity_and_extra_bytes():
@@ -74,9 +122,7 @@ def test_level_capacity_and_extra_bytes():
 
 def test_scanned_gate(monkeypatch):
     """Scanned dispatch must fall back to G=1 when the inline table's
-    gather-layout HLO-temp copy would overflow the chip."""
-    import jax
-
+    temporary copy would overflow the device."""
     n = 2048
     rng = np.random.default_rng(1)
     pts = rng.integers(0, 2**32, size=(n, 32), dtype=np.uint32)
@@ -86,10 +132,10 @@ def test_scanned_gate(monkeypatch):
         metric="hamming",
     )
     b._ensure_points(pts)
-    assert b._scanned_fits()  # CPU backend: always fits
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert b._scanned_fits()  # tiny arrays fit a real chip too
-    monkeypatch.setenv("HNSW_TPU_HBM_BYTES", "1000000")  # 1MB chip
+    assert b._scanned_fits()  # CPU backend: no limit reported, fits
+    _patch_limit(monkeypatch, H100_LIMIT)
+    assert b._scanned_fits()  # tiny arrays fit a real card too
+    _patch_limit(monkeypatch, 1_000_000)  # a 1MB device
     assert not b._scanned_fits()
     assert b._scan_group([64, 64, 64], 0, 64) == 1
 
@@ -98,8 +144,8 @@ def test_scanned_gate(monkeypatch):
 def test_warmup_frees_prewarmup_buffers(cls, monkeypatch):
     """_host_warmup must delete the pre-warmup zero buffers before
     uploading replacements — old+new simultaneously doubles peak HBM
-    (the round-3 2M OOM)."""
-    from hnsw_itu_tpu import native
+    at large N)."""
+    from hnsw_itu import native
 
     if not native.available():
         pytest.skip("native host engine unavailable")
@@ -107,7 +153,7 @@ def test_warmup_frees_prewarmup_buffers(cls, monkeypatch):
     rng = np.random.default_rng(0)
     pts = rng.integers(0, 2**32, size=(n, 32), dtype=np.uint32)
     # force a truncated inline buffer so adj_pts exists pre-warmup
-    monkeypatch.setenv("HNSW_TPU_INLINE_BUILD_BYTES",
+    monkeypatch.setenv("HNSW_INLINE_BUILD_BYTES",
                        str(n * 16 * 4 * 4))
     b = cls(
         IndexOptions(host_warmup=n, ef_construction=16, connections=6,

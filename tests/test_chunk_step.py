@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hnsw_itu_tpu.graph import make_graph
-from hnsw_itu_tpu.models import _build
-from hnsw_itu_tpu.models.base import IndexOptions
+from hnsw_itu.graph import make_graph
+from hnsw_itu.models import _build
+from hnsw_itu.models.base import IndexOptions
 
 
 def _state(rng, n0, cap, w, words=32):
@@ -43,7 +43,7 @@ def test_chunk_step_matches_windowed_path():
         prune_budget=64, entry_sample=0, use_entry=False,
     )
 
-    # reference: windowed search + apply (the round-1 path)
+    # reference: windowed search + apply (the unscanned per-window path)
     graph = graph._replace(adj=jnp.asarray(adj_np), deg=jnp.asarray(deg_np))
     points2 = _build.write_points(
         jnp.asarray(pts_np), jnp.asarray(chunk), jnp.int32(n0)
@@ -100,25 +100,25 @@ def test_batch_size_pow2_rounding():
 
 
 def test_split_chunk_bit_identical(monkeypatch):
-    """HNSW_TPU_SPLIT_CHUNK=1 (two dispatches: chunk_search +
+    """HNSW_SPLIT_CHUNK=1 (two dispatches: chunk_search +
     apply_inserts) must produce bit-identical graphs to the fused
     chunk_step — it exists only to halve the compile-helper's program
     size at the largest shapes (W=64 @ 10.12M)."""
     import numpy as np
 
-    from hnsw_itu_tpu.models import IndexOptions
-    from hnsw_itu_tpu.models.hnsw import HNSWBuilder
-    from hnsw_itu_tpu.models.nsw import NSWBuilder
+    from hnsw_itu.models import IndexOptions
+    from hnsw_itu.models.hnsw import HNSWBuilder
+    from hnsw_itu.models.nsw import NSWBuilder
 
     rng = np.random.default_rng(17)
     pts = rng.integers(0, 2**32, size=(400, 32), dtype=np.uint32)
     opts = dict(host_warmup=0, ef_construction=24, connections=6,
                 max_connections=12, size=400, batch_size=64, scan_group=1)
     for cls in (NSWBuilder, HNSWBuilder):
-        monkeypatch.delenv("HNSW_TPU_SPLIT_CHUNK", raising=False)
+        monkeypatch.delenv("HNSW_SPLIT_CHUNK", raising=False)
         a = cls(IndexOptions(**opts), metric="hamming")
         a.extend_batched(pts)
-        monkeypatch.setenv("HNSW_TPU_SPLIT_CHUNK", "1")
+        monkeypatch.setenv("HNSW_SPLIT_CHUNK", "1")
         b = cls(IndexOptions(**opts), metric="hamming")
         b.extend_batched(pts)
         ga = a.base if hasattr(a, "base") else a.graph

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions, NSWBuilder
-from hnsw_itu_tpu.ops import HAMMING, beam_search
+from hnsw_itu.models import Bruteforce, IndexOptions, NSWBuilder
+from hnsw_itu.ops import HAMMING, beam_search
 
 
 def _random_graph(rng, n, w):

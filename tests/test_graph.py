@@ -3,13 +3,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hnsw_itu_tpu.graph import (
+from hnsw_itu.graph import (
     append_reverse_edges,
     make_graph,
     prune_rows,
     set_rows,
 )
-from hnsw_itu_tpu.ops import L2INT
+from hnsw_itu.ops import L2INT
 
 
 def test_set_rows():

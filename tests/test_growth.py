@@ -1,7 +1,7 @@
-"""Dynamic capacity growth (VERDICT r3 item 7).
+"""Dynamic capacity growth.
 
 The reference's Vec-backed graph grows on add
-(/root/reference/src/collections/simplegraph.rs:82-87); the TPU builders
+(reference/src/collections/simplegraph.rs:82-87); the device builders
 preallocate for static shapes but must no longer refuse points past
 ``IndexOptions.size`` — they reallocate at the next power of two
 (amortized-doubling, the Vec contract) and continue.
@@ -9,9 +9,9 @@ preallocate for static shapes but must no longer refuse points past
 
 import numpy as np
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
-from hnsw_itu_tpu.models.nsw import NSWBuilder
+from hnsw_itu.models import Bruteforce, IndexOptions
+from hnsw_itu.models.hnsw import HNSWBuilder
+from hnsw_itu.models.nsw import NSWBuilder
 
 
 def _recall(ids, gt_ids, k):

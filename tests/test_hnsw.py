@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+from hnsw_itu.models import Bruteforce, IndexOptions
+from hnsw_itu.models.hnsw import HNSWBuilder
 
 
 def test_hnsw_integers():

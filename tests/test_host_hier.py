@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu import native
-from hnsw_itu_tpu.models import IndexOptions
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
-from hnsw_itu_tpu.utils import recall_at_k
+from hnsw_itu import native
+from hnsw_itu.models import IndexOptions
+from hnsw_itu.models.hnsw import HNSWBuilder
+from hnsw_itu.utils import recall_at_k
 
 
 pytestmark = pytest.mark.skipif(
@@ -136,8 +136,8 @@ def test_cli_single_threaded_uses_descent(tmp_path):
     results through the hierarchy."""
     import h5py
 
-    from hnsw_itu_tpu.cli import main
-    from hnsw_itu_tpu.ops.metrics import sketches_to_u64
+    from hnsw_itu.cli import main
+    from hnsw_itu.ops.metrics import sketches_to_u64
 
     rng = np.random.default_rng(3)
     centers = rng.integers(0, 2**32, size=(16, 32), dtype=np.uint32)
@@ -156,6 +156,6 @@ def test_cli_single_threaded_uses_descent(tmp_path):
                  "-m", "12", "-M", "24", "-S", "--sort"]) == 0
     assert main(["-q", "ground-truth", "-d", str(data), "-Q", str(quer),
                  "-o", str(gt), "-k", "10"]) == 0
-    from hnsw_itu_tpu.utils import recall_files
+    from hnsw_itu.utils import recall_files
 
     assert recall_files(str(res), str(gt), 10) >= 0.9

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions, NSWBuilder
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+from hnsw_itu.models import Bruteforce, IndexOptions, NSWBuilder
+from hnsw_itu.models.hnsw import HNSWBuilder
 
 
 def test_nsw_inline_matches_regular():
@@ -51,7 +51,7 @@ def test_truncated_inline_build(monkeypatch):
     and construction searches run on estimates with an exact re-score
     before select (_build.search_select inline_words). Graph quality must
     stay close to the full-inline build."""
-    from hnsw_itu_tpu.utils import recall_at_k
+    from hnsw_itu.utils import recall_at_k
 
     rng = np.random.default_rng(8)
     n, nq, k = 1500, 64, 10
@@ -68,7 +68,7 @@ def test_truncated_inline_build(monkeypatch):
 
     # budget forces mw = floor(budget / (n*W*4)) = 4 of 32 words
     monkeypatch.setenv(
-        "HNSW_TPU_INLINE_BUILD_BYTES", str(1500 * 24 * 4 * 4)
+        "HNSW_INLINE_BUILD_BYTES", str(1500 * 24 * 4 * 4)
     )
     bt = NSWBuilder(IndexOptions(**opts), metric="hamming")
     bt.extend_batched(pts)
@@ -76,7 +76,7 @@ def test_truncated_inline_build(monkeypatch):
     assert bt.adj_pts is not None and bt.adj_pts.shape[1] == 24 * 4
     it = bt.build()
 
-    monkeypatch.delenv("HNSW_TPU_INLINE_BUILD_BYTES")
+    monkeypatch.delenv("HNSW_INLINE_BUILD_BYTES")
     bf_ = NSWBuilder(IndexOptions(**opts), metric="hamming")
     bf_.extend_batched(pts)
     assert bf_.inline_words == 0

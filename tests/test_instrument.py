@@ -4,9 +4,9 @@ import logging
 
 import numpy as np
 
-from hnsw_itu_tpu.models import IndexOptions
-from hnsw_itu_tpu.models.nsw import NSWBuilder
-from hnsw_itu_tpu.utils import SearchStats
+from hnsw_itu.models import IndexOptions
+from hnsw_itu.models.nsw import NSWBuilder
+from hnsw_itu.utils import SearchStats
 
 
 def test_search_stats_wired_through_knns():
@@ -41,8 +41,8 @@ def test_search_stats_wired_through_knns():
 def test_cli_reports_stats(tmp_path, caplog):
     import h5py
 
-    from hnsw_itu_tpu.cli import main
-    from hnsw_itu_tpu.ops.metrics import sketches_to_u64
+    from hnsw_itu.cli import main
+    from hnsw_itu.ops.metrics import sketches_to_u64
 
     rng = np.random.default_rng(1)
     pts = rng.integers(0, 2**32, size=(300, 32), dtype=np.uint32)
@@ -52,7 +52,7 @@ def test_cli_reports_stats(tmp_path, caplog):
     with h5py.File(quer, "w") as f:
         f.create_dataset("hamming", data=sketches_to_u64(pts[:16]))
 
-    with caplog.at_level(logging.INFO, logger="hnsw_itu_tpu.cli"):
+    with caplog.at_level(logging.INFO, logger="hnsw_itu.cli"):
         assert main(["query", "-d", str(data), "-Q", str(quer),
                      "-o", str(tmp_path / "r.h5"), "-k", "5", "-e", "32",
                      "-c", "32", "-m", "8", "-M", "16"]) == 0

@@ -5,11 +5,11 @@ import h5py
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.cli import format_size_string, main
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
-from hnsw_itu_tpu.models.nsw import NSWBuilder
-from hnsw_itu_tpu.utils import (
+from hnsw_itu.cli import format_size_string, main
+from hnsw_itu.models import Bruteforce, IndexOptions
+from hnsw_itu.models.hnsw import HNSWBuilder
+from hnsw_itu.models.nsw import NSWBuilder
+from hnsw_itu.utils import (
     BufferedDataset,
     ResultAttrs,
     load_index,

@@ -8,7 +8,7 @@ cross-validation over random pairs (cli/benches/distance/bench.rs:120-131).
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.ops import (
+from hnsw_itu.ops import (
     HAMMING,
     L2,
     L2INT,
@@ -104,5 +104,5 @@ def test_l2_mxu_close():
     b = rng.normal(size=(32, 64)).astype(np.float32)
     got = np.asarray(L2.pairwise_mxu(a, b))
     want = np.asarray(L2.pairwise(a, b))
-    # the norm-expansion identity trades a little precision for MXU speed
+    # the norm-expansion identity trades a little precision for matmul speed
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-2)

@@ -4,7 +4,7 @@ host knns vs brute-force oracle."""
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu import native
+from hnsw_itu import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"
@@ -18,7 +18,7 @@ def test_native_hamming_golden():
     a64[0] = 0b1111
     a64[15] = 0b1001
     b64[15] = 0b1011
-    from hnsw_itu_tpu.ops import sketches_from_u64
+    from hnsw_itu.ops import sketches_from_u64
 
     a = sketches_from_u64(a64[None])[0]
     b = sketches_from_u64(b64[None])[0]
@@ -54,7 +54,7 @@ def test_host_build_recall_vs_bruteforce():
     d, i = native.host_knns(pts, "hamming", adj, deg, n, qs, k=k, ef=64, ep=0)
     hits = sum(len(set(i[j]) & set(gi[j])) for j in range(nq))
     recall = hits / (nq * k)
-    # same calibration as the TPU builders: ~0.73 on uniform random data
+    # same calibration as the device builders: ~0.73 on uniform random data
     assert recall >= 0.65, recall
 
 

@@ -4,7 +4,7 @@ plus recall-vs-bruteforce on synthetic sketches."""
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions, NSWBuilder
+from hnsw_itu.models import Bruteforce, IndexOptions, NSWBuilder
 
 
 def test_nsw_integers():

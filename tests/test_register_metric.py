@@ -1,4 +1,4 @@
-"""Public metric extension point (VERDICT r3 item 8): a user-registered
+"""Public metric extension point: a user-registered
 Metric must work end-to-end through builders, search, brute force, and
 serialization — the reference's generic ``Point`` path
 (src/index/mod.rs:45-47)."""
@@ -6,10 +6,10 @@ serialization — the reference's generic ``Point`` path
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu import Metric, get_metric, register_metric
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions
-from hnsw_itu_tpu.models.nsw import NSWBuilder
-from hnsw_itu_tpu.ops import metrics as metrics_mod
+from hnsw_itu import Metric, get_metric, register_metric
+from hnsw_itu.models import Bruteforce, IndexOptions
+from hnsw_itu.models.nsw import NSWBuilder
+from hnsw_itu.ops import metrics as metrics_mod
 
 
 class _Chebyshev(Metric):
@@ -75,7 +75,7 @@ def test_custom_metric_end_to_end(chebyshev):
 
 
 def test_custom_metric_serialization_roundtrip(chebyshev, tmp_path):
-    from hnsw_itu_tpu.utils.serialize import load_index, save_index
+    from hnsw_itu.utils.serialize import load_index, save_index
 
     rng = np.random.default_rng(3)
     pts = rng.integers(-100, 100, size=(200, 6), dtype=np.int32)

@@ -5,10 +5,10 @@ for both NSW and HNSW and for both entry policies."""
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
-from hnsw_itu_tpu.models.nsw import NSWBuilder
-from hnsw_itu_tpu.ops.reorder import bfs_order, full_permutation
+from hnsw_itu.models import Bruteforce, IndexOptions
+from hnsw_itu.models.hnsw import HNSWBuilder
+from hnsw_itu.models.nsw import NSWBuilder
+from hnsw_itu.ops.reorder import bfs_order, full_permutation
 
 
 def test_bfs_order_is_permutation_and_local():
@@ -137,8 +137,7 @@ def test_reorder_recall_and_id_space():
 def test_reorder_with_inline_rows_matches_plain():
     """adj_pts holds neighbor POINT data in adjacency-slot order, so
     reorder permutes it in place of rebuilding; results must equal the
-    no-inline reorder bit for bit. (fused/mini still refuse: they embed
-    node ids.)"""
+    no-inline reorder bit for bit."""
     rng = np.random.default_rng(23)
     pts, qs = _clustered(rng, 300, 16)
     opts = IndexOptions(host_warmup=0, ef_construction=16, connections=4,
@@ -150,10 +149,6 @@ def test_reorder_with_inline_rows_matches_plain():
         return b.build()
 
     idx = build()
-    if idx.fused is not None or idx.mini is not None:
-        with pytest.raises(ValueError, match="enable_inline"):
-            idx.reorder()
-        pytest.skip("fused/mini table on this backend; refuse path covered")
     if idx.adj_pts is None:
         idx.enable_inline()
     assert idx.adj_pts is not None
@@ -203,7 +198,7 @@ def test_reorder_hnsw_no_levels_remaps_ep():
 
 
 def test_reorder_serialization_roundtrip(tmp_path):
-    from hnsw_itu_tpu.utils.serialize import load_index, save_index
+    from hnsw_itu.utils.serialize import load_index, save_index
 
     rng = np.random.default_rng(24)
     pts, qs = _clustered(rng, 400, 8)
@@ -266,12 +261,12 @@ def test_opts_reorder_build_path(kind):
 
 def test_builder_sealed_after_reorder_build():
     """A reorder build seals the builder: extend/build afterwards would
-    compose relabels and corrupt the id_map (ADVICE r4 medium)."""
+    compose relabels and corrupt the id_map."""
     import pytest
 
-    from hnsw_itu_tpu.models import IndexOptions
-    from hnsw_itu_tpu.models.hnsw import HNSWBuilder
-    from hnsw_itu_tpu.models.nsw import NSWBuilder
+    from hnsw_itu.models import IndexOptions
+    from hnsw_itu.models.hnsw import HNSWBuilder
+    from hnsw_itu.models.nsw import NSWBuilder
 
     rng = np.random.default_rng(7)
     pts = rng.integers(0, 2**32, size=(120, 32), dtype=np.uint32)

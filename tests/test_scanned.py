@@ -10,8 +10,8 @@ the reference's own chunk-wide relaxation, nsw.rs:224-277).
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions, NSWBuilder
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+from hnsw_itu.models import Bruteforce, IndexOptions, NSWBuilder
+from hnsw_itu.models.hnsw import HNSWBuilder
 
 
 def _opts(n, scan_group, batch_size=16, connections=8, max_connections=16):
@@ -136,8 +136,8 @@ def test_scanned_eps0_supplied_entries():
     search budget make the entry choice observable in the adjacency."""
     import jax.numpy as jnp
 
-    from hnsw_itu_tpu.graph import make_graph, set_rows
-    from hnsw_itu_tpu.models import _build
+    from hnsw_itu.graph import make_graph, set_rows
+    from hnsw_itu.models import _build
 
     words = 8
     # cluster A = rows 0..3 (zeros-ish), cluster B = rows 4..7 (ones)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.ops import HAMMING, L2INT, batched_beam_search, beam_search
+from hnsw_itu.ops import HAMMING, L2INT, batched_beam_search, beam_search
 
 INT_INF = np.iinfo(np.int32).max
 
@@ -155,38 +155,6 @@ def test_batched_matches_single():
         )
 
 
-def test_sampled_entry_topk():
-    """Multi-seed entry: top-B of the strided MXU sample — distinct ids,
-    ascending distances, column 0 equal to the single-seed argmin."""
-    import jax.numpy as jnp
-
-    from hnsw_itu_tpu.ops.entry import sampled_entry, sampled_entry_topk
-    from hnsw_itu_tpu.ops.metrics import get_metric
-
-    rng = np.random.default_rng(21)
-    n, B, S, E = 400, 16, 64, 8
-    pts = jnp.asarray(
-        rng.integers(0, 2**32, size=(n, 32), dtype=np.uint32))
-    qs = jnp.asarray(
-        rng.integers(0, 2**32, size=(B, 32), dtype=np.uint32))
-    m = get_metric("hamming")
-    ids, d = sampled_entry_topk(pts, qs, jnp.int32(n), sample_size=S,
-                                beams=E, metric=m)
-    ids, d = np.asarray(ids), np.asarray(d)
-    assert ids.shape == (B, E) and d.shape == (B, E)
-    one = np.asarray(sampled_entry(pts, qs, jnp.int32(n), sample_size=S,
-                                   metric=m))
-    np.testing.assert_array_equal(ids[:, 0], one)
-    for b in range(B):
-        assert len(set(ids[b])) == E  # distinct
-        assert (np.diff(d[b]) >= 0).all()  # ascending
-    # distances are the true exact distances to the seed points
-    gather = np.asarray(pts)[ids.reshape(-1)].reshape(B, E, 32)
-    xor = gather ^ np.asarray(qs)[:, None, :]
-    want = np.unpackbits(xor.view(np.uint8), axis=-1).sum(axis=-1)
-    np.testing.assert_array_equal(d, want)
-
-
 @pytest.mark.parametrize("dedup", ["bitmask", "beam"])
 def test_beam_search_tie_bitrev_isomorphism(dedup):
     """XLA-path tie decorrelation correctness via graph isomorphism:
@@ -196,8 +164,8 @@ def test_beam_search_tie_bitrev_isomorphism(dedup):
     fits), 'bitmask' the generic two-key branch."""
     import jax.numpy as jnp
 
-    from hnsw_itu_tpu.ops.metrics import get_metric
-    from hnsw_itu_tpu.ops.search import ID_INF, batched_beam_search
+    from hnsw_itu.ops.metrics import get_metric
+    from hnsw_itu.ops.search import ID_INF, batched_beam_search
 
     cap, w, words, B, ef, E, bits = 256, 16, 32, 16, 24, 4, 8
     rng = np.random.default_rng(dedup == "beam")

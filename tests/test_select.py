@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hnsw_itu_tpu.ops import L2INT, select_neighbors
+from hnsw_itu.ops import L2INT, select_neighbors
 
 
 def _run(numbers, q, m):

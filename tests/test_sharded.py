@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions, _build
-from hnsw_itu_tpu.models.nsw import NSWBuilder
-from hnsw_itu_tpu.parallel import ShardedNSW, knns_query_sharded, make_mesh
+from hnsw_itu.models import Bruteforce, IndexOptions, _build
+from hnsw_itu.models.nsw import NSWBuilder
+from hnsw_itu.parallel import ShardedNSW, knns_query_sharded, make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def test_sharded_build_step_semantics(mesh):
     the shard subgraph, and counts only valid rows."""
     import jax.numpy as jnp
 
-    from hnsw_itu_tpu.parallel import shard_leading, sharded_build_step
+    from hnsw_itu.parallel import shard_leading, sharded_build_step
 
     S, cap, W, c = 8, 64, 8, 6
     rng = np.random.default_rng(5)
@@ -101,14 +101,14 @@ def test_sharded_build_step_semantics(mesh):
         # no edges point at never-inserted rows
         live = adj[s][adj[s] >= 0]
         assert (live < n[s]).all()
-        # rows hold no duplicate neighbors (fused-kernel invariant)
+        # rows hold no duplicate neighbors (beam-kernel invariant)
         for v in range(n[s]):
             row = adj[s, v][: deg[s, v]]
             assert len(set(row.tolist())) == len(row)
 
 
 def test_sharded_hnsw_recall(mesh):
-    from hnsw_itu_tpu.parallel import ShardedHNSW
+    from hnsw_itu.parallel import ShardedHNSW
 
     rng = np.random.default_rng(11)
     n, nq, k = 1600, 24, 10
@@ -136,12 +136,12 @@ def test_sharded_hnsw_recall(mesh):
     assert hits / (nq * k) >= 0.8
 
 
-def test_sharded_fused_query_path(mesh, monkeypatch):
-    """enable_inline materializes per-shard fused tables and knns routes
-    through the fused kernel under shard_map (interpret mode on CPU);
-    results must stay correct vs the exact oracle and the XLA path."""
-    monkeypatch.setenv("HNSW_TPU_MINI_INTERPRET", "1")
-    from hnsw_itu_tpu.parallel import ShardedHNSW
+def test_sharded_fused_query_path(mesh):
+    """enable_inline materializes per-shard inline rows and knns routes
+    through the inline beam under shard_map (the CUDA kernel's path on a
+    GPU; the XLA inline loop here); results must stay correct vs the exact
+    oracle and the gather path."""
+    from hnsw_itu.parallel import ShardedHNSW
 
     rng = np.random.default_rng(21)
     n, nq, k = 1600, 24, 10
@@ -159,7 +159,8 @@ def test_sharded_fused_query_path(mesh, monkeypatch):
                         entry_sample=0)
     idx = ShardedHNSW.build(pts, opts, metric="hamming", mesh=mesh)
     idx.enable_inline()
-    assert idx.fused_s is not None, "per-shard fused tables expected"
+    assert idx.adj_pts_s is not None, "per-shard inline rows expected"
+    assert idx._query_path(k, 48) == "inline"  # never the kernel on a CPU
 
     r = idx.knns(qs, k, ef=48)
     ids = np.asarray(r.ids)
@@ -173,8 +174,8 @@ def test_sharded_fused_query_path(mesh, monkeypatch):
     )
     assert hits / (nq * k) >= 0.8
 
-    # the XLA path on the same sharded index agrees on the top hit
-    idx.fused_s = None
+    # the gather path on the same sharded index agrees on the top hit
+    idx.adj_pts_s = None
     r2 = idx.knns(qs, k, ef=48)
     assert (np.asarray(r2.ids)[:, 0] == ids[:, 0]).all()
 
@@ -197,10 +198,13 @@ def test_query_sharded_matches_single(mesh):
     np.testing.assert_array_equal(np.asarray(single.dists), np.asarray(sharded.dists))
 
 
-def test_sharded_scanned_build_bitexact(mesh):
+@pytest.mark.parametrize("entry_sample", [1024, 32])
+def test_sharded_scanned_build_bitexact(mesh, entry_sample):
     """sharded_build_steps_scanned must evolve the exact same state as G
     per-chunk sharded_build_step dispatches (chunks slice device-side and
-    the validity mask is computed in-kernel — both asserted here)."""
+    the validity mask is computed in-kernel — both asserted here), with
+    fixed shard entries (1024 > shard size) and with sampled construction
+    entries (32)."""
     rng = np.random.default_rng(9)
     n = 8 * 768  # cap_s=768: ramp to pos 512, then 4 steady 64-chunks
     pts = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
@@ -209,7 +213,7 @@ def test_sharded_scanned_build_bitexact(mesh):
     for g in (1, 2):
         opts = IndexOptions(host_warmup=0, ef_construction=16, connections=8,
                             max_connections=16, size=n, batch_size=64,
-                            scan_group=g)
+                            scan_group=g, entry_sample=entry_sample)
         idx = ShardedNSW.build(pts, opts, metric="hamming", mesh=mesh)
         states.append((np.asarray(idx.adj_s), np.asarray(idx.deg_s),
                        np.asarray(idx.ns)))
@@ -220,11 +224,11 @@ def test_sharded_scanned_build_bitexact(mesh):
 
 
 def test_query_sharded_hnsw_matches_single(mesh):
-    """HNSW across the query-sharded mesh (VERDICT r3 item 5): the
+    """HNSW across the query-sharded mesh: the
     hierarchy is replicated, queries split — per-query results must be
     bit-identical to the single-device knns (both the greedy-descent and
     the sampled-entry entry policies)."""
-    from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+    from hnsw_itu.models.hnsw import HNSWBuilder
 
     rng = np.random.default_rng(11)
     n, nq = 600, 16
@@ -239,7 +243,7 @@ def test_query_sharded_hnsw_matches_single(mesh):
     hnsw = b.build()
     assert len(hnsw.levels) >= 1  # exercise a real descent
 
-    for entry_sample in (0, 128):  # descent, then MXU sampled entry
+    for entry_sample in (0, 128):  # descent, then matmul sampled entry
         hnsw.query_entry_sample = entry_sample
         single = hnsw.knns(qs, 5, 32)
         sharded = knns_query_sharded(hnsw, qs, 5, 32, mesh=mesh)

@@ -11,9 +11,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hnsw_itu_tpu.graph import GraphArrays, append_reverse_edges
-from hnsw_itu_tpu.models import _build
-from hnsw_itu_tpu.models._build import make_spill
+from hnsw_itu.graph import GraphArrays, append_reverse_edges
+from hnsw_itu.models import _build
+from hnsw_itu.models._build import make_spill
 
 
 def _mk_points(n, words=4, seed=0):
@@ -114,9 +114,9 @@ def test_clustered_recall_with_spill():
     """Clustered sketches (the benchmark distribution): the spill pass must
     hold recall ABOVE the no-spill baseline (measured at 20k: 0.988 with
     vs 0.969 without)."""
-    from hnsw_itu_tpu.models import Bruteforce, IndexOptions
-    from hnsw_itu_tpu.models.nsw import NSWBuilder
-    from hnsw_itu_tpu.utils import recall_at_k
+    from hnsw_itu.models import Bruteforce, IndexOptions
+    from hnsw_itu.models.nsw import NSWBuilder
+    from hnsw_itu.utils import recall_at_k
 
     rng = np.random.default_rng(7)
     n, nq, k = 8000, 300, 10
@@ -150,8 +150,8 @@ def test_full_build_drop_rate_low():
     measured 16.6%). The post-build drain must leave no residual."""
     import jax.numpy as jnp
 
-    from hnsw_itu_tpu.models import IndexOptions
-    from hnsw_itu_tpu.models.nsw import NSWBuilder
+    from hnsw_itu.models import IndexOptions
+    from hnsw_itu.models.nsw import NSWBuilder
 
     n = 3000
     rng = np.random.default_rng(3)

@@ -1,16 +1,16 @@
 """Tests for the multi-scale synthetic sketch generator (utils/synth.py).
 
 The generator is the benchmark-data contract: every headline number
-(bench.py, run_10m.py, run_sharded_10m.py) is measured on it, so its
-structure — determinism, the ~151-bit sibling scale, and the coarse-to-
-fine distance gradient that makes the data navigable (the round-3
-flat-vs-hierarchical finding) — is load-bearing and pinned here.
+(bench.py, chip_smoke.py) is measured on it, so its structure —
+determinism, the ~151-bit sibling scale, and the coarse-to-fine distance
+gradient that makes the data navigable (flat clusters are not) — is
+load-bearing and pinned here.
 """
 
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu.utils.synth import WORDS, make_dataset, make_leaves, make_points
+from hnsw_itu.utils.synth import WORDS, make_dataset, make_leaves, make_points
 
 
 def _hamming(a, b):
@@ -64,10 +64,10 @@ def test_queries_share_clusters_with_points():
 
 
 def test_distribution_profiles():
-    """Robustness-sweep profiles (VERDICT r4 item 4): every profile keeps
+    """Robustness-sweep profiles: every profile keeps
     queries answerable (nearest point well below the 512-bit background),
     and the knobs move the right statistics."""
-    from hnsw_itu_tpu.utils.synth import PROFILES
+    from hnsw_itu.utils.synth import PROFILES
 
     stats = {}
     for prof in PROFILES:
@@ -91,7 +91,7 @@ def test_distribution_profiles():
 
 
 def test_recall_tie_tolerant():
-    from hnsw_itu_tpu.utils import recall_at_k, recall_tie_tolerant
+    from hnsw_itu.utils import recall_at_k, recall_tie_tolerant
 
     # oracle: dists [3, 5, 5], ids [1, 2, 3]; ties at the k=3 boundary
     gt_ids = np.array([[1, 2, 3]])

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hnsw_itu_tpu.ops import bitset, merge_min_k, min_k, sort_by_dist
+from hnsw_itu.ops import bitset, merge_min_k, min_k, sort_by_dist
 
 
 def test_min_k_with_duplicates():
@@ -61,7 +61,7 @@ def test_bitset_masked_insert():
 def test_inverse_permutation():
     import numpy as np
 
-    from hnsw_itu_tpu.ops.topk import inverse_permutation
+    from hnsw_itu.ops.topk import inverse_permutation
 
     rng = np.random.default_rng(5)
     for n in (1, 7, 512):

@@ -4,9 +4,9 @@ paths through the native engine."""
 import numpy as np
 import pytest
 
-from hnsw_itu_tpu import native
-from hnsw_itu_tpu.models import Bruteforce, IndexOptions, NSWBuilder
-from hnsw_itu_tpu.models.hnsw import HNSWBuilder
+from hnsw_itu import native
+from hnsw_itu.models import Bruteforce, IndexOptions, NSWBuilder
+from hnsw_itu.models.hnsw import HNSWBuilder
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"
